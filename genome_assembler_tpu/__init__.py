@@ -1,11 +1,11 @@
-"""TPU-native de novo genome assembler (JAX / XLA / Pallas).
+"""De novo genome assembler on accelerators (JAX / XLA).
 
-A brand-new framework with the capabilities of the reference single-CPU
-De Bruijn assembler (see SURVEY.md), redesigned TPU-first:
+A framework with the capabilities of the reference single-CPU De Bruijn
+assembler (see SURVEY.md), redesigned around fixed-shape device arrays:
 
   * ``utils``    — 2-bit data model, config, seeded read simulator, metrics.
-  * ``ops``      — Pallas k-mer kernels + XLA sort/segment-reduce counting,
-                   graph construction, on-device unitig compression.
+  * ``ops``      — k-mer extraction + sort/segment-reduce counting, graph
+                   construction, on-device unitig compression.
   * ``parallel`` — ``shard_map`` multi-device pipeline: data-parallel reads,
                    hash-prefix all-to-all k-mer sharding, reduce-scatter
                    merges over a device mesh.

@@ -260,8 +260,7 @@ def cmd_assemble(args) -> int:
         if multiproc and hosts is None:
             import jax
 
-            # pod default: one 'host' mesh row per process, so XLA routes
-            # cross-host collectives over DCN and intra-host over ICI
+            # multi-process default: one 'host' mesh row per process
             hosts = jax.process_count()
         mesh = build_mesh(args.devices, hosts=hosts)
         if args.sharded_graph:
@@ -298,7 +297,6 @@ def cmd_assemble(args) -> int:
             metrics=metrics,
             checkpoint=args.checkpoint,
             resume_from=args.resume_from,
-            use_pallas=args.pallas,
             table_capacity=args.table_capacity,
             return_graph=True,
             emit=args.emit,
@@ -329,7 +327,7 @@ def cmd_assemble(args) -> int:
 
 def cmd_reshard(args) -> int:
     """Rewrite a mid-stream sharded checkpoint for a different mesh size
-    (elastic recovery: a preempted pod count resumes on however many
+    (elastic recovery: a preempted count resumes on however many
     devices remain). Host-side only — no device work, no recounting."""
     from .parallel.pipeline import reshard_sharded_stream_checkpoint
 
@@ -395,7 +393,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="mesh size for --backend dist (default: all)")
     pa.add_argument("--hosts", type=int, default=None,
                     help="build a 2-level (host, chip) mesh with this many "
-                    "hosts (--backend dist; pod runs pair it with GA_DIST=1)")
+                    "hosts (--backend dist; multi-node launches only, "
+                    "paired with GA_DIST=1)")
     pa.add_argument("--minimizer-len", type=int, default=None,
                     help="route minimizer super-k-mer records over the "
                     "all-to-all instead of per-window keys (~3-6x less "
@@ -419,8 +418,6 @@ def build_parser() -> argparse.ArgumentParser:
         "(default); euler spells full Eulerian walks (reference-parity "
         "mode, walks through junctions)",
     )
-    pa.add_argument("--pallas", action="store_true",
-                    help="use the Pallas extraction kernel (tpu backend)")
     pa.add_argument("--table-capacity", type=int, default=None,
                     help="unique-k-mer capacity of the streaming count "
                     "table (tpu backend). Default sizes it from the window "
@@ -429,15 +426,14 @@ def build_parser() -> argparse.ArgumentParser:
                     "silent)")
     pa.add_argument("--batch-reads", type=int, default=None,
                     help="reads per device batch for the streaming counter "
-                    "(default 262144 — larger fused batches measured slower "
-                    "on this backend; see RESULTS.md sizing rules)")
+                    "(default 262144)")
     pa.add_argument("--bucketed", choices=["auto", "on", "off"],
                     default=None,
                     help="hash-bucketed streaming merge (tpu backend): "
                     "batched bucket sorts replace the monolithic merge "
-                    "sort, which turns super-linear past ~26M rows. auto "
-                    "(default) enables it when a merge would exceed that; "
-                    "equivalent env: GA_BUCKETED")
+                    "sort. auto (default) enables it when a merge would "
+                    "exceed BUCKETED_MIN_MERGE_ROWS; equivalent env: "
+                    "GA_BUCKETED")
     pa.add_argument("--merge-stride", type=int, default=None,
                     help="streaming counter merge cadence: extraction/"
                     "routing appends this many batches of raw keys to a "

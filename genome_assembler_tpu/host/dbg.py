@@ -1,10 +1,10 @@
 """Host-side De Bruijn graph + unitig compression (branchy residue).
 
 Capability parity: reference components C5 (graph build) and the host half of
-the TPU design's M4 split (SURVEY.md §7): the device compresses the
+the device design's M4 split (SURVEY.md §7): the device compresses the
 non-branching 95%; this module handles graph semantics, the host fallback
 compression, and the small branchy graph that tips/bubbles/Euler operate on.
-It is shared verbatim by the oracle assembler and the TPU pipeline, so the
+It is shared verbatim by the oracle assembler and the device pipeline, so the
 two paths can only diverge in the counting stage.
 
 Normative graph semantics (both paths MUST follow these; the reference mount
@@ -109,7 +109,7 @@ def compress_unitigs(edges: dict[str, int], k: int) -> list[Unitig]:
 
     Deterministic: edges are visited in sorted order, so unitig numbering and
     cycle break points are reproducible across runs and across the
-    oracle/TPU paths (SURVEY.md §7 hard parts: deterministic tie-breaking).
+    oracle/device paths (SURVEY.md §7 hard parts: deterministic tie-breaking).
     """
     out_edges: dict[str, list[str]] = {}
     indeg: dict[str, int] = {}
@@ -183,9 +183,8 @@ def spell_device_arrays(dev, k: int, u_cap: int | None = None):
 
     The device reduces the edge table to a compact transfer set
     (ops.unitig_jax.spell_arrays: the (uid, pos)-sorted base stream plus
-    per-unitig head words / lengths / coverage sums) — the device->host
-    link here runs at ~40 MB/s, so the full edge arrays must never cross
-    it. Host assembly is pure vectorized NumPy (np.repeat segment fills)
+    per-unitig head words / lengths / coverage sums), so the full edge
+    arrays never cross to the host. Host assembly is pure vectorized NumPy (np.repeat segment fills)
     into the packed-code representation that array-native simplification
     (host.simplify_arrays) consumes directly — no Python strings exist
     until the final simplified graph is materialized.

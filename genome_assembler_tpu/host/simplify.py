@@ -2,7 +2,7 @@
 
 This module is the NORMATIVE SPEC: the rules below, written as plain
 Python over Unitig objects, define simplification semantics for every
-path. The oracle runs this code directly; the TPU pipelines run the
+path. The oracle runs this code directly; the device pipelines run the
 vectorized mirror (``host.simplify_arrays`` — O(U) array passes over a
 segment view, no string churn), which is property-tested equal to this
 implementation on the same inputs. Keep the two in lockstep: any rule

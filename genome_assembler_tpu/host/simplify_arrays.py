@@ -34,7 +34,7 @@ Decision parity with the normative rules is exact, not approximate:
 
 Property-tested equal to ``simplify_unitigs`` on random branchy inputs
 (tests/test_simplify_arrays.py) and pinned by every end-to-end
-oracle-equality test, since the TPU pipelines call this path.
+oracle-equality test, since the device pipelines call this path.
 """
 
 from __future__ import annotations
@@ -121,9 +121,8 @@ def build_unitig_arrays(
     body_excl = np.concatenate([[0], np.cumsum(lengths)[:-1]])
     body_start = offsets[:-1] + (k - 1)
     if u <= 8192:
-        # few (usually long) unitigs: plain slice copies — measured 10x+
-        # over materializing a fancy index the size of the genome
-        # (tools/profile_spell.py: 1.49 s -> ~0.1 s at CFG-2 scale)
+        # few (usually long) unitigs: plain slice copies — cheaper than
+        # materializing a fancy index the size of the genome
         for i in range(u):
             s = int(body_excl[i])
             ln = int(lengths[i])

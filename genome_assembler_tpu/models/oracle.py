@@ -12,9 +12,9 @@ Two counting paths:
     the reference's hot loop (SURVEY.md §3.3); used on tiny inputs and to
     validate the vectorized path.
   * ``count_canonical_fast`` — NumPy rolling-pack counting (ops/kmer_ref),
-    bit-compatible with the TPU kernels; used for multi-Mb oracle runs.
+    bit-compatible with the device kernels; used for multi-Mb oracle runs.
 
-Graph/simplify/traverse are the *shared* host modules, so oracle-vs-TPU
+Graph/simplify/traverse are the *shared* host modules, so oracle-vs-device
 contig equality reduces to counting-stage equality.
 """
 
@@ -62,10 +62,10 @@ def assemble_from_counts(
 
     emit: "unitigs" (default — contigs stop at junctions) or "euler"
     (reference-parity mode — contigs spelled from Eulerian walks, mirrored
-    on the TPU path so oracle-vs-TPU equality holds in both modes).
+    on the device path so oracle-vs-device equality holds in both modes).
     """
     min_count = cfg.min_count
-    if min_count == 0:  # auto threshold, same heuristic as the TPU path
+    if min_count == 0:  # auto threshold, same heuristic as the device path
         from .pipeline import auto_min_count
 
         min_count = auto_min_count(

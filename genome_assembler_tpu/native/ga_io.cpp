@@ -1,7 +1,7 @@
 // Native read ingestion: mmap + 2-bit encode (reference C1 at scale).
 //
 // The reference parses reads in Python (SURVEY.md §2.1 C1); at CFG-3 scale
-// (~1 GB of reads) Python line parsing costs tens of seconds, so the TPU
+// (~1 GB of reads) Python line parsing costs tens of seconds, so the
 // framework ships a C++ loader: mmap the file, scan line/FASTA/FASTQ
 // structure, and encode ACGT -> 2-bit codes straight into a caller-provided
 // [B, L] uint8 buffer ready for jax.device_put. Ambiguous bases (N etc.)

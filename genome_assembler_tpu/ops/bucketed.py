@@ -1,13 +1,11 @@
-"""Hash-bucketed streaming k-mer table: batched sorts past the cliff.
+"""Hash-bucketed streaming k-mer table: batched sorts for large merges.
 
-``lax.sort`` on this TPU degrades super-linearly with monolithic row
-count (amortized 3.96 ns/row at 17M rows -> ~13 ns/row at 81M,
-tools/measure_stride_cfg2_results.json), while BATCHED sorts over
-[B, rows/B] shapes stay at 1.5-2.1 ns/row at the same total size
-(tools/probe_batched_merge_results.json). The streaming counter's
-per-batch merge (count_jax.merge_raw_keys) is two ~(cap+batch)-row
-monolithic sorts, so beyond ~26M merge rows (tens-of-Mb genomes,
-SURVEY.md §5 long-context row) the merge pays the cliff on every batch.
+The streaming counter's per-batch merge (count_jax.merge_raw_keys) is
+two ~(cap+batch)-row monolithic sorts. Past BUCKETED_MIN_MERGE_ROWS
+(models.pipeline; tens-of-Mb genomes, SURVEY.md §5 long-context row)
+the merge instead sorts BATCHED [B, rows/B] shapes, whose per-row cost
+does not grow with the table. Whether the GPU's sort needs this at all
+is ROADMAP A7.
 
 This module keeps the running table PARTITIONED into ``nb`` hash buckets
 so every merge runs as batched [nb, cb+m] sorts instead:
@@ -18,7 +16,7 @@ so every merge runs as batched [nb, cb+m] sorts instead:
     bucket of a key never changes, so equal keys always meet in the
     same bucket and per-bucket merges aggregate exactly;
   * a batch is routed with ONE monolithic (bucket, key) sort of just the
-    batch rows (batch size stays below the cliff by construction), then
+    batch rows (batch-sized, whatever the table), then
     static-shape dynamic slices pack each bucket's segment;
   * per-bucket merge + segment reduce are the bit-exact batched mirrors
     of count_jax.merge_raw_keys (same neighbor-diff weighted reduce;
@@ -108,9 +106,8 @@ def _route_and_pack(
 
     Returns (packed_words [nb, m, W], packed_payload [nb, m] | None,
     seg_lens [nb], over_m scalar bool). Padding rows are SENTINEL
-    (payload 0). The monolithic sort runs over just the batch rows —
-    below the sort cliff by construction (batch sizing rules,
-    RESULTS.md) — and is the only non-batched sort in the merge.
+    (payload 0). The monolithic sort runs over just the batch rows and
+    is the only non-batched sort in the merge.
 
     full_order=False sorts by the bucket column ONLY (num_keys=1, same
     operand count, 1-word comparator instead of 1+W): rows group by
@@ -357,13 +354,9 @@ flatten_bucketed = functools.partial(
 )(flatten_bucketed_impl)
 
 
-# Target per-bucket rows per merge for the auto bucket count. The r3
-# batched-sort probe (tools/probe_batched_merge_results.json) and the r5
-# 40 Mb sweep (tools/r5_buckets_sweep.jsonl: 128/256/512/1024/2048/4096
-# buckets -> 21.4/16.8/16.5/14.5/... s at 169k rows/bucket for 1024)
-# both show batched sorts getting faster as segments shrink toward the
-# VMEM-resident regime; the shipped target sits at the sweep's measured
-# minimum. GA_BUCKETS overrides the rule outright.
+# Target per-bucket rows per merge for the auto bucket count: a tuning
+# constant (ROADMAP A7); any value gives bit-identical tables.
+# GA_BUCKETS overrides the rule outright.
 BUCKET_TARGET_SEG = 96 * 1024
 
 
@@ -375,8 +368,8 @@ def auto_buckets(
     (cb + accum*m ~= (cb_slack*capacity + m_slack*accum*merge_windows)/nb)
     near BUCKET_TARGET_SEG, clamped to [256, 4096].
 
-    More buckets = faster batched merges (smaller segments sort at
-    below-cliff per-row rates) but a smaller per-bucket multiplicity cap
+    More buckets = smaller batched-sort segments but a smaller
+    per-bucket multiplicity cap
     (a single k-mer with > m copies in one batch overflows its segment —
     checked, never silent, GA_BUCKETS=256 the conservative fallback for
     homopolymer-heavy data). The clamp keeps both effects bounded.

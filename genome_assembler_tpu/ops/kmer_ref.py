@@ -1,11 +1,11 @@
 """NumPy reference implementation of k-mer extraction / canonicalization.
 
-Role (SURVEY.md §4): the pure-NumPy oracle for the Pallas/XLA kernels in
-``ops/kmer_pallas.py`` — bit-exact on the same multi-word key layout
+Role (SURVEY.md §4): the pure-NumPy oracle for the XLA extraction in
+``ops/kmer_jax.py`` — bit-exact on the same multi-word key layout
 (``utils.dna``: big-endian uint32 words, W = 2k//32 + 1), and fast enough to
 power the host oracle assembler's counting stage on multi-Mb read sets.
 
-Algorithm (mirrors the TPU kernel, SURVEY.md §7 M2): rolling multi-word shift
+Algorithm (mirrors the device kernel, SURVEY.md §7 M2): rolling multi-word shift
 over the k window positions —
     fwd  <- (fwd << 2) | base            (base appended at the low end)
     rc   <- (rc  >> 2) | comp << 2(k-1)  (complement prepended at the high end)

@@ -2,7 +2,7 @@
 
 VERDICT r1 item 6 / SURVEY.md §5 long-context row: the r1 distributed path
 counted shard-wise but then gathered every shard to one device for
-compression, bounding graph size by a single chip's HBM. Here every
+compression, bounding graph size by a single device's memory. Here every
 compression stage stays sharded over the mesh; per-device memory is a set
 of static [K]-row buffers with K = edges/device, so capacity scales ~1/D
 (see ``peak_rows_per_device`` — shapes are static, so the scaling claim is

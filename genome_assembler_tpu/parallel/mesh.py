@@ -3,18 +3,19 @@
 All distribution rides ``jax.sharding.Mesh`` + ``shard_map`` with XLA
 collectives — no hand-written transport. Two mesh shapes:
 
-  * 1-level ``('d',)`` over every local chip (single host);
-  * 2-level ``('host', 'chip')`` for pod slices: XLA lowers collectives to
-    ICI within a host's slice and DCN across hosts. The counting step's
-    all-to-all runs over the flattened ('host', 'chip') tuple axis, so the
-    same code executes on both shapes.
+  * 1-level ``('d',)`` over every local device (single host; the layout
+    for GPUs of one host, which reach each other all to all);
+  * 2-level ``('host', 'chip')`` for multi-node launches, one row per
+    process. The counting step's all-to-all runs over the flattened
+    ('host', 'chip') tuple axis, so the same code executes on both
+    shapes.
 
 Multi-host launch is a config change, not a code change
 (``init_distributed``): run the identical command — with the SAME global
 reads file; every stage stages inputs via jax.device_put onto global
 shardings, which transfers only each process's addressable shards — on
-every host with GA_DIST=1 (plus the standard JAX coordinator env vars
-when not on a TPU pod, which auto-detects), e.g.
+every host with GA_DIST=1 plus GA_COORD_ADDR, GA_NUM_PROCESSES and
+GA_PROCESS_ID, e.g.
 
     GA_DIST=1 ga-tpu assemble --backend dist --reads reads.txt ...
 
@@ -40,18 +41,18 @@ _DIST_INITIALIZED = False
 def init_distributed() -> bool:
     """Wire up jax.distributed from the environment (GA_DIST=1).
 
-    On TPU pods ``jax.distributed.initialize()`` auto-discovers the
-    coordinator; elsewhere set GA_COORD_ADDR, GA_NUM_PROCESSES and
-    GA_PROCESS_ID. Idempotent; returns True when running multi-process.
+    Set GA_COORD_ADDR (host:port of process 0), GA_NUM_PROCESSES and
+    GA_PROCESS_ID; without them ``jax.distributed.initialize()`` relies
+    on a cluster environment JAX can detect. Idempotent; returns True when running multi-process.
     """
     global _DIST_INITIALIZED
     if os.environ.get("GA_DIST") != "1":
         return False
     if not _DIST_INITIALIZED:
         try:
-            # Cross-process collectives on the CPU backend need gloo (TPU
-            # pods ignore this knob); must be set before the backend
-            # initializes. Validated end-to-end by tests/test_multiprocess.
+            # Cross-process collectives on the CPU backend need gloo
+            # (GPUs use NCCL and ignore this knob); must be set before
+            # the backend initializes. Validated end-to-end by tests/test_multiprocess.
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         except Exception:  # pragma: no cover - option renamed/absent
             pass
@@ -75,10 +76,10 @@ def build_mesh(
     """1-level mesh over local devices, or a 2-level ('host','chip') mesh.
 
     hosts set: devices (global when jax.distributed is live) reshape to
-    [hosts, chips_per_host]. On a real pod pass
-    hosts=jax.process_count() so the 'host' axis tracks process boundaries
-    and XLA routes its collectives over DCN; on the forced CPU platform any
-    factorization works (that is what the 2-host dryrun fakes).
+    [hosts, chips_per_host]. On a multi-node launch pass
+    hosts=jax.process_count() so the 'host' axis tracks process
+    boundaries; on the forced CPU platform any factorization works (that
+    is what the 2-host dryrun fakes).
     """
     devices = jax.devices()
     if hosts is not None:

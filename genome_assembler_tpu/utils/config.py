@@ -2,7 +2,7 @@
 
 Capability parity: the reference exposes k and the coverage threshold as CLI
 args/constants (SURVEY.md §5; reference mount empty — survey reconstruction).
-The TPU build centralises every static-shape capacity knob here because XLA
+The device build centralises every static-shape capacity knob here because XLA
 traces fixed shapes (SURVEY.md §7 "hard parts": capacity-bounded buffers).
 """
 
@@ -29,7 +29,7 @@ class AssemblyConfig:
       bubble_len:   collapse parallel unitig arms of <= bubble_len k-mer
                     edges (reference C7). Default 2k edges.
 
-    Static-shape capacities (TPU build only):
+    Static-shape capacities (device build only):
       read_len:     fixed read length L; every read batch is [B, L] codes.
       batch_reads:  reads per device batch B fed to the extraction kernel.
 

@@ -4,7 +4,7 @@ Capability parity: the reference assembler's k-mer/reverse-complement string
 utilities (SURVEY.md §2.1 C2-C3; reference mount empty this round — see
 SURVEY.md §0, so citations are to the survey's reconstruction, not file:line).
 
-Design (TPU-first, SURVEY.md §7 M0):
+Design (device-array-first, SURVEY.md §7 M0):
   * Bases are 2-bit codes A=0, C=1, G=2, T=3 so that complement(x) == 3 - x.
   * A k-mer is a 2k-bit big-endian integer (first base in the highest bits),
     stored as ``W = 2k//32 + 1`` uint32 words, word 0 = most significant.
@@ -15,7 +15,7 @@ Design (TPU-first, SURVEY.md §7 M0):
   * ``W`` always leaves >= 2 spare high bits zero for valid k-mers, so the
     all-ones word tuple is a safe +inf sentinel for padding/invalid lanes.
 
-This module is NumPy/str only (host side); the JAX/Pallas equivalents live in
+This module is NumPy/str only (host side); the JAX equivalents live in
 ``genome_assembler_tpu.ops``.
 """
 
@@ -259,7 +259,7 @@ def key_words(k: int) -> int:
 def kmer_to_words(codes: np.ndarray) -> tuple[int, ...]:
     """Pack k 2-bit codes into the big-endian uint32 word tuple.
 
-    Host-side mirror of the packing the Pallas extraction kernel performs;
+    Host-side mirror of the packing the device extraction performs;
     used as the oracle for kernel unit tests.
     """
     codes = np.asarray(codes, dtype=np.uint64)

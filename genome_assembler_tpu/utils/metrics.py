@@ -1,9 +1,9 @@
 """Structured per-stage metrics and tracing (SURVEY.md §5 observability).
 
-The reference prints to stdout; the TPU build emits structured per-stage
+The reference prints to stdout; this build emits structured per-stage
 wall-clock + throughput counters consumable by the bench configs
 (BASELINE.md CFG 2-4): k-mers/s, reads/s, bytes/s vs the HBM roofline,
-all-to-all volume, weak-scaling efficiency. A ``StageTimer`` wraps each
+all-to-all volume, weak-scaling efficiency. ``Metrics.stage`` wraps each
 pipeline stage; ``jax.profiler.trace`` can be layered on via GA_TRACE_DIR.
 """
 
@@ -18,7 +18,30 @@ from dataclasses import dataclass, field
 
 log = logging.getLogger("genome_assembler_tpu")
 
-HBM_PEAK_BYTES_S = float(os.environ.get("GA_HBM_PEAK", 819e9))  # TPU v5e
+# Published HBM bandwidth by JAX ``device_kind`` (NVIDIA H100 data sheet:
+# SXM 3.35 TB/s, PCIe 2.0 TB/s).
+HBM_PEAK_BYTES_S: dict[str, float] = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
+}
+
+
+def hbm_peak_bytes_s(device_kind: str) -> float:
+    """Published HBM peak of a device kind; an unknown kind is an error."""
+    try:
+        return HBM_PEAK_BYTES_S[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published HBM peak for device kind {device_kind!r}"
+        ) from None
+
+
+def _gpu_kind() -> str | None:
+    """device_kind of the first device when it is a GPU, else None."""
+    import jax
+
+    dev = jax.devices()[0]
+    return dev.device_kind if dev.platform == "gpu" else None
 
 
 @dataclass
@@ -62,15 +85,18 @@ class Metrics:
                 out["reads_per_s"] = self.counters["reads"] / total
         hosts = self.counters.get("hosts")
         if hosts and hosts > 0 and "reads_per_s" in out:
-            # weak-scaling bookkeeping (BASELINE.md): pod runs report
+            # weak-scaling bookkeeping (BASELINE.md): multi-host runs report
             # per-host throughput so efficiency is a config change to read
             out["reads_per_s_per_host"] = out["reads_per_s"] / hosts
         count_s = self.stages.get("count")
         if count_s and "count_bytes" in self.counters:
             out["count_bytes_per_s"] = self.counters["count_bytes"] / count_s
-            out["hbm_roofline_frac"] = (
-                out["count_bytes_per_s"] / HBM_PEAK_BYTES_S
-            )
+            # a roofline share exists only against a device's own peak
+            kind = _gpu_kind()
+            if kind is not None:
+                out["hbm_roofline_frac"] = (
+                    out["count_bytes_per_s"] / hbm_peak_bytes_s(kind)
+                )
         return out
 
     def report(self) -> dict:

@@ -12,7 +12,7 @@ moment the mount populates:
 
 It locates the reference's entry script, runs it on a read set (supplied or
 simulated), parses whatever contigs it prints (FASTA or plain lines), runs
-this framework's oracle and TPU backends on the same reads, and reports
+this framework's oracle and device backends on the same reads, and reports
 per-backend equality (up to reverse complement and contig order) as JSON.
 
 Nothing here executes unless explicitly invoked with a populated path: the
@@ -219,7 +219,7 @@ def verify(
             ks_run = [kk for kk in ks if kk < min_len] or [min(ks)]
 
             # Sweep (k, emit) per backend; first match wins. Per-k state
-            # (oracle count dict / TPU codes) is computed once and reused
+            # (oracle count dict / device codes) is computed once and reused
             # across the two emission modes.
             comparison: dict[str, bool] = {}
             matched: dict[str, dict | None] = {}

@@ -85,7 +85,9 @@ def test_metrics_report():
     for stage in ("count", "filter", "compress", "spell", "traverse"):
         assert stage in rep["stages_s"], rep
     assert rep["derived"]["kmers_per_s"] > 0
-    assert "hbm_roofline_frac" in rep["derived"]
+    assert rep["derived"]["count_bytes_per_s"] > 0
+    # no device peak on the CPU, so no roofline share
+    assert "hbm_roofline_frac" not in rep["derived"]
 
 
 def test_cfg5_circular_scaled_passes():

@@ -248,25 +248,23 @@ def _boom_factory(*a, **k):
         import jax
 
         raise jax.errors.JaxRuntimeError(
-            "INTERNAL: remote_compile: HTTP 500 (simulated)"
+            "INTERNAL: simulated backend failure"
         )
 
     return _boom
 
 
-def test_bucketed_auto_fallback_distributed(force_stream, monkeypatch,
-                                            capsys):
-    """AUTO-selected per-shard bucketed merges degrade to the flat
-    sharded merge when the bucketed program fails at compile/run time
-    (parallel.pipeline._run_distributed_stream dispatcher), mirroring
-    the single-device fallback in models.pipeline."""
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bucketed_auto_distributed_error_propagates(
+    force_stream, monkeypatch, stride
+):
+    """An AUTO-selected per-shard bucketed merge that fails at
+    compile/run time raises, as the single-device stream does."""
+    import jax
+
     codes = _reads()
     cfg = AssemblyConfig(k=15, read_len=60, batch_reads=64)
     mesh = build_mesh(4)
-    monkeypatch.setenv("GA_BUCKETED", "0")
-    flat = pp.distributed_count_to_host(
-        codes, cfg, mesh, table_capacity=4096
-    )
     monkeypatch.setenv("GA_BUCKETED", "auto")
     monkeypatch.setattr(mp, "BUCKETED_MIN_MERGE_ROWS", 1)
     monkeypatch.setattr(
@@ -281,11 +279,10 @@ def test_bucketed_auto_fallback_distributed(force_stream, monkeypatch,
     monkeypatch.setattr(
         pp, "make_distributed_staged_merge_bucketed", _boom_factory
     )
-    got = pp.distributed_count_to_host(
-        codes, cfg, mesh, table_capacity=4096
-    )
-    assert got == flat == count_canonical_fast(codes, cfg.k)
-    assert "per-shard bucketed merge failed" in capsys.readouterr().err
+    with pytest.raises(jax.errors.JaxRuntimeError):
+        pp.distributed_count_to_host(
+            codes, cfg, mesh, table_capacity=4096, merge_stride=stride
+        )
 
 
 def test_bucketed_explicit_distributed_failure_propagates(

@@ -3,7 +3,7 @@
 The default emission stops contigs at branching junctions; --emit euler
 spells contigs from full edge-covering Eulerian walks, as the reference's
 ``eulerian_path -> contigs`` stack does (SURVEY.md §3.1/§3.4). Both modes
-must agree between the oracle and the TPU path, and on branch-free graphs
+must agree between the oracle and the device path, and on branch-free graphs
 they must coincide.
 """
 

@@ -102,19 +102,16 @@ def test_strided_property(stride, n_reads, seed):
     assert got == count_canonical_dict(reads, cfg.k)
 
 
-def test_strided_pallas_padding_rows_masked(monkeypatch):
-    """Pallas pads the read array to a 256-row multiple before streaming;
-    the strided path must compute per-batch validity from the ORIGINAL
-    read count, not the padded array (regression: padded zero-rows were
-    counted as poly-A k-mers when use_pallas and stride > 1)."""
+def test_strided_padded_final_batch_masked(monkeypatch):
+    """600 reads in batches of 256 leave a zero-padded final batch; the
+    strided path must mask its padding rows by the real read count
+    (padded zero rows would otherwise count as poly-A k-mers)."""
     genome = simulate_genome(2000, seed=97)
     rs = simulate_reads(genome, coverage=30, read_len=60, seed=98)
-    reads = rs.codes[:600]  # pads to 768 rows for the pallas tiles
+    reads = rs.codes[:600]
     cfg = AssemblyConfig(k=21, read_len=60, batch_reads=256)
     monkeypatch.setenv("GA_MERGE_STRIDE", "2")
-    table = count_reads_device(
-        reads, cfg, table_capacity=1 << 14, use_pallas=True
-    )
+    table = count_reads_device(reads, cfg, table_capacity=1 << 14)
     assert table_to_host_counts(table, cfg.k) == count_canonical_dict(
         reads, cfg.k
     )

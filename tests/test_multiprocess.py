@@ -1,8 +1,8 @@
-"""True multi-process pod-launch validation (SURVEY.md §5 distributed
+"""True multi-process launch validation (SURVEY.md §5 distributed
 backend): two coordinated processes x 2 CPU devices each run the FULL
 distributed pipeline over a 2-level ('host','chip') mesh with gloo
-cross-process collectives — the CPU stand-in for a real TPU pod's
-ICI/DCN — and must reproduce the oracle contigs bit for bit.
+cross-process collectives — the CPU stand-in for a multi-node
+launch — and must reproduce the oracle contigs bit for bit.
 
 This is the end-to-end check of the GA_DIST wiring: coordinator
 bring-up before any backend touch (utils.jaxenv.setup), global-array
@@ -39,7 +39,7 @@ def _launch(tmp_path, reads_file, pid, nproc, port, extra):
         GA_COORD_ADDR=f"localhost:{port}",
         GA_NUM_PROCESSES=str(nproc),
         GA_PROCESS_ID=str(pid),
-        GA_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=2",
     )
     out = tmp_path / f"contigs_p{pid}.fa"

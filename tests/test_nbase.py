@@ -161,39 +161,35 @@ def test_native_loader_fasta_with_ns(tmp_path):
     assert list(out[1]) == [2, 2, 2, 3, 1]
 
 
-def test_pallas_extraction_masks_ns_like_xla():
-    """The Pallas kernel honors the invalid-base plane (interpret mode)."""
+def test_extraction_n_plane_matches_raw_codes():
+    """The separate ambiguous-base plane (how Ns travel beside 2-bit
+    packed codes) masks exactly the windows raw INVALID_CODE bases do."""
     import jax.numpy as jnp
 
     from genome_assembler_tpu.ops.kmer_jax import extract_canonical_flat
-    from genome_assembler_tpu.ops.kmer_pallas import (
-        extract_canonical_flat_pallas,
-    )
 
     codes, _ = _reads_with_ns(0.02, seed=55, genome_len=800)
-    b = (codes.shape[0] // 256 + 1) * 256
-    padded = np.zeros((b, codes.shape[1]), np.uint8)
-    padded[: codes.shape[0]] = codes
-    bad = jnp.asarray(padded > 3)
-    clamped = jnp.asarray(padded & 3)
+    bad = jnp.asarray(codes > 3)
+    clamped = jnp.asarray(codes & 3)
     k = 21
-    nv = np.int32(codes.shape[0])
-    want, _ = extract_canonical_flat(jnp.asarray(padded), k, nv)
-    got, _ = extract_canonical_flat_pallas(clamped, k, nv, bad=bad)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    nv = np.int32(codes.shape[0] - 3)
+    want_k, want_v = extract_canonical_flat(jnp.asarray(codes), k, nv)
+    got_k, got_v = extract_canonical_flat(clamped, k, nv, bad)
+    np.testing.assert_array_equal(np.asarray(got_k), np.asarray(want_k))
+    np.testing.assert_array_equal(np.asarray(got_v), np.asarray(want_v))
 
 
-def test_pallas_pipeline_with_ns():
-    """use_pallas no longer silently downgrades on N-containing reads."""
-    from genome_assembler_tpu.models.oracle import count_canonical_dict
+def test_streamed_pipeline_with_ns():
+    """Streamed batches carry the packed N bits: counts equal the dict
+    oracle, including the zero-padded final batch."""
     from genome_assembler_tpu.models.pipeline import (
         count_reads_device,
         table_to_host_counts,
     )
 
     codes, _ = _reads_with_ns(0.01, seed=57)
-    cfg = AssemblyConfig(k=25, read_len=100)
+    cfg = AssemblyConfig(k=25, read_len=100, batch_reads=128)
     got = table_to_host_counts(
-        count_reads_device(codes, cfg, use_pallas=True), cfg.k
+        count_reads_device(codes, cfg, table_capacity=1 << 13), cfg.k
     )
     assert got == count_canonical_dict(codes, cfg.k)

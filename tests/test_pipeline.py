@@ -1,4 +1,4 @@
-"""Single-device TPU pipeline vs oracle: contig equality (SURVEY.md §4)."""
+"""Single-device pipeline vs oracle: contig equality (SURVEY.md §4)."""
 
 import numpy as np
 import pytest

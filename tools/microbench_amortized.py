@@ -1,11 +1,7 @@
-"""Latency-amortized primitive microbenchmarks (VERDICT r2 item 1).
+"""Latency-amortized primitive microbenchmarks on the GPU.
 
-The r2 microbenchmarks (tools/microbench.py) timed ONE dispatch per case on
-a platform with a ~32 ms dispatch roundtrip — the same magnitude as the
-measurements — so the derived stream bandwidth (7.9 GB/s) and the
-"sort ≈ 2.5-3 stream passes" floor argument were latency-confounded.
-
-This tool removes the confound two ways at once:
+Timing ONE dispatch per case folds the fixed per-dispatch cost into the
+measurement. This tool removes it two ways at once:
   * every case runs ITERS carry-dependent iterations inside ONE jitted
     ``lax.fori_loop`` (XLA cannot elide the body: each iteration's input is
     the previous iteration's output, and sorts are re-perturbed per
@@ -19,9 +15,10 @@ elementwise stream pass (the bandwidth yardstick), cumsum (the scan shape),
 lax.sort at the exact operand/key shapes count_jax.count_keys dispatches,
 and the data-dependent gather of the pointer-doubling loop.
 
-Run: python tools/microbench_amortized.py [N_log2]   (default 1<<24 rows)
-Writes one JSON line per case and a summary to
-tools/microbench_amortized_results.json.
+Run on a GPU machine:
+    python tools/microbench_amortized.py [N_log2] [out.json]
+(default 1<<24 rows). Prints one JSON line per case and a summary, and
+writes them to out.json when given. Fails without a GPU.
 """
 
 from __future__ import annotations
@@ -35,10 +32,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 
 def main() -> int:
-    from genome_assembler_tpu.utils.jaxenv import setup, sync
+    import jax
+
+    if jax.default_backend() != "gpu":
+        print(f"microbench_amortized: no GPU (JAX backend is "
+              f"{jax.default_backend()!r})", file=sys.stderr)
+        return 1
+    from genome_assembler_tpu.utils.jaxenv import setup
 
     setup()
-    import jax
     import jax.numpy as jnp
     import numpy as np
     from jax import lax
@@ -61,12 +63,12 @@ def main() -> int:
 
         f = jax.jit(run)
         out = f(init)
-        sync(jax.tree.leaves(out)[0])
+        jax.block_until_ready(out)
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
             out = f(init)
-            sync(jax.tree.leaves(out)[0])
+            jax.block_until_ready(out)
             times.append(time.perf_counter() - t0)
         return min(times)
 
@@ -117,8 +119,7 @@ def main() -> int:
 
     # --- sorts at count_keys' exact dispatch shapes. The carry is
     # re-perturbed with a per-iteration odd-multiplier xor so iteration
-    # j never sorts already-sorted data (TPU sort is a data-oblivious
-    # network, but don't rely on that).
+    # j never sorts already-sorted data.
     def sort1_body(i, c):
         return lax.sort((c ^ (i.astype(jnp.uint32) * mix),), num_keys=1)[0]
 
@@ -164,7 +165,7 @@ def main() -> int:
     bench("gather_rand_1col", gather_body, a, 4, 32,
           bytes_per_iter=3 * 4 * n)
 
-    # Derived comparisons the r2 floor argument hinged on.
+    # Derived comparisons: the sort's cost in stream passes.
     stream_per = results["stream_1op"]["per_iter_s"]
     sort3_per = results["sort_3op_2key"]["per_iter_s"]
     summary = {
@@ -174,12 +175,10 @@ def main() -> int:
         "sort_equals_stream_passes": round(sort3_per / max(stream_per, 1e-12), 1),
     }
     print(json.dumps({"summary": summary}))
-    path = os.path.join(
-        os.path.dirname(__file__), "microbench_amortized_results.json"
-    )
-    with open(path, "w") as fh:
-        json.dump({"n": n, "results": results, "summary": summary}, fh,
-                  indent=2)
+    if len(sys.argv) > 2:
+        with open(sys.argv[2], "w") as fh:
+            json.dump({"n": n, "results": results, "summary": summary}, fh,
+                      indent=2)
     return 0
 
 

@@ -61,8 +61,8 @@ def main() -> int:
     )
     t0 = time.time()
     contigs = assemble_tpu(rs.codes, cfg, table_capacity=capacity)
-    tpu_s = time.time() - t0
-    print(f"# pipeline: {len(contigs)} contigs in {tpu_s:.0f}s "
+    pipeline_s = time.time() - t0
+    print(f"# pipeline: {len(contigs)} contigs in {pipeline_s:.0f}s "
           f"[{jax.devices()[0].platform}]", file=sys.stderr, flush=True)
     t0 = time.time()
     oracle = assemble_oracle(rs.codes, cfg)
@@ -75,13 +75,13 @@ def main() -> int:
         "coverage": coverage,
         "reads": rs.num_reads,
         "platform": jax.devices()[0].platform,
-        "tpu_contigs": len(contigs),
+        "pipeline_contigs": len(contigs),
         "oracle_contigs": len(oracle),
         "contig_sets_equal": contigs == oracle,
         "kmer_content_equal_vs_genome": kmer_content_equal(
             contigs, decode_seq(genome), k
         ),
-        "tpu_wall_s": round(tpu_s, 1),
+        "pipeline_wall_s": round(pipeline_s, 1),
         "oracle_wall_s": round(oracle_s, 1),
     }
     out = os.path.join(os.path.dirname(__file__),
